@@ -79,7 +79,7 @@ def main():
     bench("System::xtc_iter (with progress printing)",
           lambda: sum(1 for _ in system.xtc_iter(xtc).print_progress(printer)))
 
-    # batched-pipeline counterparts (the TPU-native path)
+    # batched-pipeline counterparts (the batched path)
     import jax.numpy as jnp
 
     from groan_rs_tpu.io.traj import traj_iter

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Round-3 feature tour: the composed TPU pipeline end to end.
+"""Feature tour: the composed analysis pipeline end to end.
 
 Runs against the reference fixture corpus (read-only) on any backend —
-CPU jax is fine; on a TPU the same code hits the compiled fast path.
+CPU jax is fine; on a GPU the same code runs compiled for the card.
 
 Covers:
 - the full observable suite in ONE jitted step (COM, COG distance,
@@ -81,7 +81,7 @@ def main():
           f"HBM, kind={dt.kind}) bit-equal to streamed:", same)
 
     # sweep MANY analyses over the resident trajectory with ONE packed
-    # result fetch (M passes ~ M async dispatches + 1 round trip)
+    # result fetch (M passes ~ M async dispatches + 1 transfer)
     from groan_rs_tpu.models import run_many
 
     dt_all = pipe_r.runner(ship="all").load_device(

@@ -1,9 +1,9 @@
-"""groan_rs_tpu — a TPU-native molecular-dynamics trajectory analysis engine.
+"""groan_rs_tpu — a JAX molecular-dynamics trajectory analysis engine.
 
 A from-scratch JAX/XLA framework with the capabilities of the groan_rs Rust
 library (structure/trajectory I/O, the Groan Selection Language, PBC-aware
 geometry, Bai-Breen centers, Kabsch RMSD, hydrogen bonds, grid maps,
-frame-parallel map-reduce) — re-designed for TPU: trajectories become
+frame-parallel map-reduce) — re-designed for accelerators: trajectories become
 batched `[frames, atoms, 3]` device arrays fed by a native C++ XTC/TRR
 codec, selections compile to static masks/gather indices, and per-frame
 analyses run as jitted, mesh-sharded steps.

@@ -2500,14 +2500,17 @@ def _genrestr(sp=None, args=None):
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        prog="groan-tpu",
-        description="TPU-native MD analysis tools (gmx-style CLI)")
+        prog="groan",
+        description="JAX MD analysis tools (gmx-style CLI)")
     sub = p.add_subparsers(dest="tool", required=True, metavar="<tool>")
     for name, (fn, help_) in sorted(TOOLS.items()):
         sp = sub.add_parser(name, help=help_)
         fn(sp)                       # register options
         sp.set_defaults(_run=fn)
     args = p.parse_args(argv)
+    from .compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     try:
         args._run(args=args)
     except GroanError as e:

@@ -9,9 +9,9 @@ twice.
 Unlike the reference's `Array3<Vec<usize>>`, atoms are stored as one CSR
 (sorted-by-cell index array + per-cell offsets), so whole neighbor-cell
 candidate lists come back as numpy slices ready for vectorized distance
-filtering.  The device-side analogue (tiled Pallas pair kernels) lives in
-`ops/pallas_kernels.py`; hbonds/guess use vectorized 27-offset CSR gathers
-over this grid.
+filtering.  The device-side pair reductions (minimum distance, contacts)
+live in `ops/distances.py`; hbonds/guess use vectorized 27-offset CSR
+gathers over this grid.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """AtomContainer: run-length encoded sorted index sets.
 
-TPU-native equivalent of the reference `AtomContainer`
+Array-based equivalent of the reference `AtomContainer`
 (`src/structures/container.rs:13-31`): groups and bond lists are stored as
 sorted inclusive `[start, end]` blocks.  Unlike the reference (which walks
 blocks atom-by-atom), this implementation is numpy-backed: block algebra for

@@ -1,6 +1,6 @@
 """Axis-mask dimension type.
 
-TPU-native form of the reference's 8-way `Dimension` enum
+Array-based form of the reference's 8-way `Dimension` enum
 (`src/structures/dimension.rs:15`): each variant is represented by a static
 boolean 3-mask so device kernels consume it as a constant `(3,)` float mask
 that XLA folds away.

@@ -1,24 +1,26 @@
-"""Element database (YAML-driven).
+"""Element database.
 
 reference: `src/structures/element.rs` — `Elements` (`:20`) holds an
 ordered map of `Element` (`:147`) entries {symbol, GSL query, mass, vdw,
-expected min/max bonds}; the default database ships as
-`config/elements.yaml` (embedded at compile time in the reference,
-`element.rs:37`) and user files merge over it (`Elements::update`,
-`element.rs:112`).
+expected min/max bonds}; the default database is the reference's
+`src/config/elements.yaml` (embedded at compile time there,
+`element.rs:37`; itself derived from Gromacs atommass.dat / vdwradii.dat
+and VMD vdw tables), shipped here as `config/elements.json` so that it
+loads with the standard library.  Earlier entries take guessing
+priority.  User files (YAML, read with PyYAML when it is installed, or
+JSON) merge over it (`Elements::update`, `element.rs:112`).
 """
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass, field
 
-import yaml
-
 from ..errors import ElementError
 
-_DEFAULT_YAML = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                             "config", "elements.yaml")
+_DEFAULT_DB = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "config", "elements.json")
 
 _ALLOWED_FIELDS = {"symbol", "query", "mass", "vdw", "expected_max_bonds", "expected_min_bonds"}
 
@@ -52,17 +54,30 @@ class Elements:
     # ------------------------------------------------------------- loading
     @classmethod
     def default(cls) -> "Elements":
-        return cls.from_file(_DEFAULT_YAML)
+        return cls.from_file(_DEFAULT_DB)
 
     @classmethod
     def from_file(cls, path) -> "Elements":
+        """Load an element table from a YAML file (the reference's format;
+        needs PyYAML) or, for a `.json` path, a JSON file."""
         try:
             with open(path) as fh:
-                raw = yaml.safe_load(fh)
+                text = fh.read()
         except OSError:
             raise ElementError(f"file '{path}' was not found", code="FileNotFound") from None
-        except yaml.YAMLError as e:
-            raise ElementError(f"could not parse '{path}': {e}", code="CouldNotParseYaml") from None
+        if str(path).endswith(".json"):
+            try:
+                raw = json.loads(text)
+            except ValueError as e:
+                raise ElementError(f"could not parse '{path}': {e}",
+                                   code="CouldNotParseYaml") from None
+        else:
+            yaml = _yaml()
+            try:
+                raw = yaml.safe_load(text)
+            except yaml.YAMLError as e:
+                raise ElementError(f"could not parse '{path}': {e}",
+                                   code="CouldNotParseYaml") from None
         if raw is None:
             return cls({})
         if not isinstance(raw, dict):
@@ -86,6 +101,17 @@ class Elements:
 
     def get(self, name: str) -> Element | None:
         return self.elements.get(name)
+
+
+def _yaml():
+    """PyYAML, imported only where a user hands over a YAML file."""
+    try:
+        import yaml
+    except ImportError:
+        raise ElementError(
+            "reading a YAML element file needs PyYAML (pip install pyyaml); "
+            "a .json file loads without it", code="CouldNotParseYaml") from None
+    return yaml
 
 
 def _parse_element(name: str, fields: dict) -> Element:

@@ -1,6 +1,6 @@
 """Geometric shapes for selection filtering.
 
-TPU-native re-design of the reference `Shape` trait
+Batched re-design of the reference `Shape` trait
 (`src/structures/shape.rs:71`): instead of a per-atom `inside(point)` call,
 every shape evaluates `inside(points[..., 3], box) -> bool[...]` as one
 vectorized predicate (jnp or numpy transparently via jnp ops).  The

@@ -1,6 +1,6 @@
 """Simulation box.
 
-TPU-native equivalent of the reference `SimBox`
+Array-based equivalent of the reference `SimBox`
 (`src/structures/simbox.rs:13-26`): a 9-component triclinic box following the
 Gromacs convention (v1y = v1z = v2z = 0).  The GRO box-line component order is
 ``v1x v2y v3z v1y v1z v2x v2z v3x v3y``.

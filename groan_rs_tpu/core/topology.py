@@ -1,6 +1,6 @@
 """Topology: structure-of-arrays static atom metadata.
 
-TPU-native re-design of the reference's AoS `Atom` struct
+Batched re-design of the reference's AoS `Atom` struct
 (`src/structures/atom.rs:23-71`): the 17 per-atom fields become columnar
 numpy arrays with string fields interned (`StrColumn`: unique categories +
 int32 codes), so the GSL selection compiler evaluates name predicates over

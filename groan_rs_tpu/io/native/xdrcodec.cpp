@@ -1718,7 +1718,7 @@ static int64_t read_delta_impl(const char* path, const int64_t* offsets, int64_t
   const int64_t nout3 = int64_t(nout) * 3;
   // int16 scratch (uninitialized): the delta wire presupposes q16-able
   // ints (GX_ERR_Q16 falls through to the q16/f32 paths otherwise), and
-  // halving the scratch write traffic matters on this 1-vCPU host
+  // halving the scratch write traffic matters when decode is the wall
   std::unique_ptr<int16_t[]> q(new int16_t[size_t(nframes) * size_t(natoms3)]);
   std::unique_ptr<int16_t[]> base16;
   std::atomic<int64_t> err{GX_OK};

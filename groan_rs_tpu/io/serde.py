@@ -10,7 +10,6 @@ serde output: a list of per-atom records (null for absent optionals),
 from __future__ import annotations
 
 import numpy as np
-import yaml
 
 from ..core.container import AtomContainer
 from ..core.simbox import SimBox
@@ -169,7 +168,18 @@ def system_from_dict(data: dict):
     return system
 
 
+def _yaml():
+    """PyYAML, imported only when a System is (de)serialized."""
+    try:
+        import yaml
+    except ImportError:
+        raise GroanError("System YAML serialization needs PyYAML "
+                         "(pip install pyyaml)") from None
+    return yaml
+
+
 def system_to_yaml(system, filename=None) -> str:
+    yaml = _yaml()
     # libyaml emitter: the pure-Python one takes ~50 s on a 17k-atom system
     text = yaml.dump(system_to_dict(system), Dumper=yaml.CSafeDumper,
                      sort_keys=False, default_flow_style=False)
@@ -183,6 +193,7 @@ def system_from_yaml(source):
     """Load a System from a YAML string or file path."""
     import os
 
+    yaml = _yaml()
     if isinstance(source, str) and "\n" not in source and os.path.exists(source):
         with open(source) as fh:
             data = yaml.load(fh, Loader=yaml.CSafeLoader)

@@ -1,6 +1,6 @@
 """Trajectory reader/writer protocol.
 
-TPU-native re-design of the reference reader stack (`src/io/traj_read.rs`,
+Batched re-design of the reference reader stack (`src/io/traj_read.rs`,
 `xtc_io/`, `trr_io/`, `gro_io/trajectory.rs`, `traj_cat.rs`):
 
 - Every format exposes a **frame index** (offsets/steps/times scanned once,
@@ -46,7 +46,7 @@ class FrameBatch:
     """A decoded batch of frames (host numpy, ready for device_put).
 
     `wire` selects the on-wire coordinate format (the compact formats cut
-    host->device transfer, the usual TPU bottleneck; all dequantize on
+    host->device transfer; all dequantize on
     device bit-identically to the float decode path):
       - "f32":   positions are float32 [B, K, 3] (12 B/atom)
       - "q16":   positions are raw quantized int16 (6 B/atom);
@@ -627,11 +627,10 @@ class TrajReader:
         per-chunk fallback delta6 -> delta -> q16 -> f32); see
         `FrameBatch`.  Non-XTC sources
         always produce f32.  With `deferred=True` the returned loader does
-        NOT start decoding the next chunk until `.release()` is called —
-        on a host where the device transfer itself needs CPU (tunnel
-        clients, 1-vCPU boxes) the consumer calls release() after its
-        transfer completes so decode overlaps device compute, not the
-        wire push (FrameEngine does this).
+        NOT start decoding the next chunk until `.release()` is called:
+        the consumer calls release() after its transfer completes so
+        decode overlaps device compute, not the transfer (FrameEngine
+        does this).
         """
         bs = batch_size or self.batch_size
         sel = self.selected_frames()

@@ -725,7 +725,7 @@ def filter_traj(system, trajectory, output, *, window: int = 5,
     cosine-weighted average of its `window`-frame neighborhood (weights
     1 + cos(pi i / n), gmx filter's kernel; edges renormalize over the
     available frames), and the whole convolution evaluates as ONE
-    [F, F] band matrix x [F, 3K] matmul — the MXU's native workload.
+    [F, F] band matrix x [F, 3K] matmul.
     `wrap=True` rewraps the smoothed coordinates into each frame's box.
 
     Writes to `output` (format from the extension: xtc/trr/gro) the

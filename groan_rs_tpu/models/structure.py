@@ -199,8 +199,8 @@ def pca(system, trajectory, group: str, *, n_components: int | None = None,
     Every frame is least-squares fitted onto the reference structure
     (mass-weighted, exactly as `rmsf`/`calc_rmsd_and_fit`), then the
     3K x 3K covariance of the (optionally sqrt-mass-weighted) positional
-    deviations is built in ONE `[F, 3K]^T @ [F, 3K]` matmul — the MXU's
-    native workload — and eigendecomposed on device; frame projections
+    deviations is built in ONE `[F, 3K]^T @ [F, 3K]` matmul and
+    eigendecomposed on device; frame projections
     onto the eigenvectors come from a second matmul.  The whole analysis
     is a single jitted dispatch over the device-resident trajectory.
 
@@ -214,7 +214,7 @@ def pca(system, trajectory, group: str, *, n_components: int | None = None,
     With `mesh` (a `jax.sharding.Mesh` with a 'frames' axis) the whole
     analysis runs as ONE `shard_map`: frames shard over devices, each
     shard fits its frames and builds partial mean / `X^T X` sums,
-    `psum` over ICI combines them (two 3K-sized collectives total), and
+    `psum` across devices combines them (two 3K-sized collectives total), and
     the eigendecomposition replicates — the data-parallel training-step
     shape.  Frame counts that don't divide the axis are zero-mask
     padded, never truncated.  Results are identical to the single-device
@@ -624,7 +624,7 @@ def entropy(system, trajectory, group: str, *, temperature: float = 300.0,
     `gmx anaeig -entropy` workload; absent from the reference).
 
     Runs the mass-weighted positional PCA (`models.pca`: batched fit +
-    one MXU covariance matmul + device `eigh`) and evaluates both
+    one covariance matmul + device `eigh`) and evaluates both
     standard estimates over the eigenvalues lambda_i (amu nm^2):
 
     - Schlitter's upper bound:

@@ -1,38 +1,30 @@
-"""Distance kernels: centers, pairs, and tiled N x M distance matrices.
+"""Distance kernels: centers, pairs, N x M distance matrices and pair
+reductions.
 
-TPU-native re-design of `src/system/analysis.rs`:
+Batched re-design of `src/system/analysis.rs`:
 - `group_distance` (analysis.rs:348) -> `center_distance`
 - `group_all_distances` (analysis.rs:401, N x M pair matrix) ->
-  `distance_matrix` (computed via the |a-b|^2 = |a|^2 + |b|^2 - 2ab
-  expansion per periodic image so the heavy term rides the MXU), plus a
-  `pairwise_displacements` helper for small sets.
+  `distance_matrix`.
 
-For very large N x M the matrix is produced tile-by-tile by XLA (the einsum
-is tiled automatically); callers that only need reductions over the matrix
-(min distance, contact counts) should use `contact_count`/`min_distance`
-which never materialize N x M in HBM beyond one tile.
+Callers that only need a reduction over the pair matrix (minimum
+distance, contact counts) use `min_distance` / `contact_count`, which never
+form the N x M matrix: rows of the first set are taken a chunk at a time
+under `lax.map`, and each chunk is one fused elementwise-plus-reduce pass.
 """
 
 from __future__ import annotations
 
-import os
-
+import jax
 import jax.numpy as jnp
+import numpy as np
 
 from . import pbc
 from .center import center
 from .pbc import distance, min_image
 
-# above this many pairs (N*M), min_distance/contact_count route to the
-# tiled Pallas kernels, which never materialize N x M in HBM; below it the
-# dense path wins (kernel launch overhead) and supports masks/dim_mask
-_PAIR_TILE_THRESHOLD = int(os.environ.get("GROAN_PAIR_TILE_THRESHOLD",
-                                          str(1 << 24)))
-
-
-def _tiled_route(a, b, mask_a, mask_b) -> bool:
-    return (mask_a is None and mask_b is None
-            and a.shape[-2] * b.shape[-2] >= _PAIR_TILE_THRESHOLD)
+# elements of one [frames, rows, M] chunk of the pair reduction: bounds the
+# intermediate should XLA not fuse the reduction into its producer
+_PAIR_CHUNK_ELEMS = 1 << 27
 
 
 def _box_rows(box, like):
@@ -67,8 +59,6 @@ def residue_min_matrix(pos, boxes, block_idx, block_mask, *,
     Rows evaluate `chunk` residues at a time under `lax.map` so peak
     memory is the `[chunk, R, P, P, 3]` displacement tile.
     """
-    import jax
-
     pos = jnp.asarray(pos, jnp.float32)
     bi = jnp.asarray(block_idx, jnp.int32)
     bm = jnp.asarray(block_mask, bool)
@@ -152,47 +142,101 @@ def distance_matrix_masked(a, b, box, mask_a, mask_b, fill=jnp.nan,
     return jnp.where(valid, m, fill)
 
 
+def _pair_reduce(a, b, box, cut2, mask_a, mask_b, chunk_elems=None):
+    """Reduce minimum-image d^2 over all (i, j) pairs of `a` [..., N, 3]
+    and `b` [..., M, 3] in an orthorhombic `box` ([..., 3] or [..., 1, 3]):
+    the smallest d^2 when `cut2` is None, else the number of pairs with
+    d^2 < cut2.  Masked-out atoms take no part.  -> [...]
+
+    Per axis d - L * floor(d * (1/L) + 0.5), then dx^2 + dy^2 + dz^2 (the
+    sign convention of `pbc.min_image` at exactly L/2 does not change d^2).
+    Rows of `a` go `chunk_elems // (frames * M)` at a time under `lax.map`
+    (default `_PAIR_CHUNK_ELEMS`).  Lowered for a GPU, an unmasked
+    reduction with no explicit `chunk_elems` runs as the `ops.pair_triton`
+    kernel instead: the same arithmetic, faster on an H100 (PERF.md).
+    """
+    a = jnp.asarray(a, jnp.float32)
+    b = jnp.asarray(b, jnp.float32)
+    box = _box_rows(box, a)
+    n, m = a.shape[-2], b.shape[-2]
+    lead = jnp.broadcast_shapes(a.shape[:-2], b.shape[:-2], box.shape[:-1])
+    f = int(np.prod(lead, dtype=np.int64))
+    a = jnp.broadcast_to(a, lead + (n, 3)).reshape(f, n, 3)
+    b = jnp.broadcast_to(b, lead + (m, 3)).reshape(f, m, 3)
+    box = jnp.broadcast_to(box, lead + (3,)).reshape(f, 3)
+    inv = 1.0 / box
+
+    if mask_a is None and mask_b is None and chunk_elems is None:
+        from . import pair_triton
+
+        def plain(a, b, box):
+            return _pair_reduce(a, b, box, cut2, None, None,
+                                _PAIR_CHUNK_ELEMS)
+
+        out = jax.lax.platform_dependent(
+            a, b, box, default=plain,
+            cuda=lambda a, b, box: pair_triton.pair_reduce(a, b, box, cut2))
+        return out.reshape(lead)
+    if chunk_elems is None:
+        chunk_elems = _PAIR_CHUNK_ELEMS
+    rows = int(max(1, min(n, chunk_elems // max(1, f * m))))
+    n_chunks = -(-n // rows)
+    pad = n_chunks * rows - n
+    ma = None
+    if mask_a is not None or pad:
+        ma = (jnp.ones((f, n), bool) if mask_a is None else
+              jnp.broadcast_to(jnp.asarray(mask_a, bool), lead + (n,))
+              .reshape(f, n))
+        ma = jnp.pad(ma, ((0, 0), (0, pad)))
+        ma = ma.reshape(f, n_chunks, rows).transpose(1, 0, 2)
+    mb = (None if mask_b is None else
+          jnp.broadcast_to(jnp.asarray(mask_b, bool), lead + (m,))
+          .reshape(f, 1, m))
+    a_c = jnp.pad(a, ((0, 0), (0, pad), (0, 0)))
+    a_c = a_c.reshape(f, n_chunks, rows, 3).transpose(1, 3, 0, 2)
+    b_s = [b[:, None, :, k] for k in range(3)]          # [F, 1, M] each
+    box_s = [box[:, k, None, None] for k in range(3)]   # [F, 1, 1] each
+    inv_s = [inv[:, k, None, None] for k in range(3)]
+
+    def chunk(args):
+        ac, mc = args                                   # [3, F, rows]
+        d2 = None
+        for k in range(3):
+            d = ac[k][:, :, None] - b_s[k]
+            d = d - box_s[k] * jnp.floor(d * inv_s[k] + 0.5)
+            d2 = d * d if d2 is None else d2 + d * d
+        valid = None
+        if mc is not None:
+            valid = mc[:, :, None]
+        if mb is not None:
+            valid = mb if valid is None else valid & mb
+        if cut2 is None:
+            if valid is not None:
+                d2 = jnp.where(valid, d2, jnp.inf)
+            return jnp.min(d2, axis=(1, 2))
+        hit = d2 < cut2
+        if valid is not None:
+            hit = hit & valid
+        return jnp.sum(hit, axis=(1, 2), dtype=jnp.int32)
+
+    parts = jax.lax.map(chunk, (a_c, ma))               # [n_chunks, F]
+    out = jnp.min(parts, axis=0) if cut2 is None else jnp.sum(parts, axis=0)
+    return out.reshape(lead)
+
+
 def contact_count(a, b, box, cutoff, mask_a=None, mask_b=None):
-    """Number of pairs within `cutoff`.
-
-    Large unmasked selections route to the tiled Pallas kernel (one VMEM
-    tile at a time, no N x M in HBM); small/masked ones use the dense
-    path.  Matches at the f32 level (same min-image arithmetic)."""
-    a = jnp.asarray(a)
-    b = jnp.asarray(b)
-    box = _box_rows(box, a)  # [..., 1, 3] (per-atom broadcast form) -> [..., 3]
-    if _tiled_route(a, b, mask_a, mask_b):
-        from . import pallas_kernels
-
-        return pallas_kernels.contact_count_batched(a, b, box, float(cutoff))
-    d = distance_matrix(a, b, box)
-    within = d < cutoff
-    if mask_a is not None:
-        within = within & jnp.asarray(mask_a)[..., :, None]
-    if mask_b is not None:
-        within = within & jnp.asarray(mask_b)[..., None, :]
-    return jnp.sum(within, axis=(-2, -1))
+    """Number of pairs within `cutoff` (d^2 < cutoff^2, both float32),
+    without forming the N x M matrix.  a [..., N, 3], b [..., M, 3]."""
+    cut2 = float(np.float32(cutoff) * np.float32(cutoff))
+    return _pair_reduce(a, b, box, cut2, mask_a, mask_b)
 
 
 def min_distance(a, b, box, mask_a=None, mask_b=None):
-    """Minimum PBC distance between two selections.
-
-    Large unmasked selections route to the tiled Pallas kernel (see
-    contact_count); the 200k x 100k scale the dense path cannot reach
-    (reference analogue: group_all_distances, analysis.rs:401)."""
-    a = jnp.asarray(a)
-    b = jnp.asarray(b)
-    box = _box_rows(box, a)  # [..., 1, 3] (per-atom broadcast form) -> [..., 3]
-    if _tiled_route(a, b, mask_a, mask_b):
-        from . import pallas_kernels
-
-        return pallas_kernels.min_distance_batched(a, b, box)
-    d = distance_matrix(a, b, box)
-    if mask_a is not None or mask_b is not None:
-        ma = jnp.ones(d.shape[:-1], bool) if mask_a is None else jnp.asarray(mask_a)[..., :, None]
-        mb = jnp.ones(d.shape[:-2] + d.shape[-1:], bool) if mask_b is None else jnp.asarray(mask_b)[..., None, :]
-        d = jnp.where(ma & mb, d, jnp.inf)
-    return jnp.min(d, axis=(-2, -1))
+    """Minimum PBC distance between two selections, without forming the
+    N x M matrix (reference analogue: the minimum of
+    group_all_distances, analysis.rs:401); inf when a mask leaves no
+    pair."""
+    return jnp.sqrt(_pair_reduce(a, b, box, None, mask_a, mask_b))
 
 
 def pair_distance_histogram(a, b, box, r_max, n_bins: int,
@@ -225,8 +269,6 @@ def pair_distance_histogram(a, b, box, r_max, n_bins: int,
 
     if flat_idx.ndim == 1:
         return one(flat_idx, flat_ok)
-    import jax
-
     return jax.vmap(one)(flat_idx.reshape(-1, flat_idx.shape[-1]),
                          flat_ok.reshape(-1, flat_ok.shape[-1])).reshape(
         idx.shape[:-2] + (n_bins,))
@@ -236,8 +278,6 @@ def rdf_normalization(box_lengths, n_a: int, n_b: int, r_max, n_bins: int,
                       exclude_self: bool = False):
     """Ideal-gas shell counts for normalizing a pair histogram into g(r):
     g(r_k) = hist_k / (n_pairs * V_shell_k / V_box), `[..., n_bins]`."""
-    import numpy as np
-
     dr = r_max / n_bins
     edges = np.arange(n_bins + 1) * dr
     shell = 4.0 / 3.0 * np.pi * (edges[1:] ** 3 - edges[:-1] ** 3)
@@ -271,9 +311,6 @@ def self_image_min(pos, boxes, *, chunk: int = 128):
 
     Returns `(min_image [F], max_internal [F])` in nm (float32).
     """
-    import jax
-    import numpy as np
-
     pos = jnp.asarray(pos, jnp.float32)
     f, k, _ = pos.shape
     boxes = jnp.asarray(boxes, jnp.float32)

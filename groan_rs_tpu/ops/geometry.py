@@ -3,7 +3,7 @@
 The reference exposes per-pair geometry only (`Vector3D::angle`,
 `src/structures/vector3d.rs:276`, non-PBC, evaluated one pair at a time);
 it has no per-frame angle/dihedral trajectory analysis.  These kernels
-cover the `gmx angle` / `gmx chi` workload the TPU way: a `[B, K, 3]`
+cover the `gmx angle` / `gmx chi` workload the batched way: a `[B, K, 3]`
 batch of frames x angle-sites evaluates in one fused elementwise pass —
 no per-angle host loop, no trig on the host.
 

@@ -1,7 +1,7 @@
 """Mean-squared displacement on device (surpass feature).
 
 The reference has no MSD analysis; this is the classic `gmx msd`
-observable computed TPU-natively from a device-resident trajectory:
+observable computed on device from a device-resident trajectory:
 
   1. unwrap: consecutive-frame displacements taken through the minimum
      image (orthorhombic boxes; frame-to-frame motion is assumed smaller
@@ -13,7 +13,7 @@ observable computed TPU-natively from a device-resident trajectory:
      jitted `lax.map` (differences first — no large-sum cancellation,
      unlike the FFT S1/S2 decomposition, which is why the direct form is
      used; each lag is O(F*K) so the full all-lag sweep is O(F^2*K)
-     streaming work the TPU does from HBM at full bandwidth).
+     streaming work the device does from memory at full bandwidth).
 
 All math is float32 on device; tests pin it against a float64 host
 recomputation.

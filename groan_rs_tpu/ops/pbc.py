@@ -1,9 +1,9 @@
 """Periodic-boundary-condition kernels (pure JAX, shape-polymorphic).
 
-TPU-native re-design of the reference's scalar PBC math
+Batched re-design of the reference's scalar PBC math
 (`src/structures/vector3d.rs:380-592`).  The reference uses loop-subtract
-wrapping because scalar `floor` is slow on CPU; on TPU the VPU evaluates the
-closed `floor`-based forms elementwise over `[..., 3]` arrays, with exact-
+wrapping because scalar `floor` is slow on CPU; here the closed
+`floor`-based forms evaluate elementwise over `[..., 3]` arrays, with exact-
 boundary fixes so semantics match the reference's loops bit-for-bit on the
 boundary cases (`x == L` stays `L`, `dx == ±L/2` keeps its sign).
 
@@ -21,6 +21,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+# every f32 contraction here pins HIGHEST: the default f32 matmul
+# precision on a GPU is TF32 (10-bit mantissa, ~1e-3 relative), which
+# would break float32 parity with the reference
 _HI = jax.lax.Precision.HIGHEST
 
 __all__ = [

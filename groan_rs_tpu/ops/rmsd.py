@@ -1,6 +1,6 @@
 """Kabsch RMSD / fit kernels (batched over frames).
 
-TPU-native re-design of the reference RMSD pipeline (`src/system/rmsd.rs`):
+Batched re-design of the reference RMSD pipeline (`src/system/rmsd.rs`):
 
 - `kabsch` — mass-weighted Kabsch (`rmsd.rs:547-604`): unweighted covariance
   H = sum(p_c q_c^T), 3x3 SVD with determinant sign fix, R = U D V^T,
@@ -28,6 +28,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+# every f32 contraction here pins HIGHEST: the default f32 matmul
+# precision on a GPU is TF32 (10-bit mantissa, ~1e-3 relative), which
+# would break float32 parity with the reference
 _HI = jax.lax.Precision.HIGHEST
 
 from .center import center
@@ -91,8 +94,8 @@ def kabsch(p, q, w, centroid_p, centroid_q):
     The optimal rotation comes from the QCP quaternion formulation
     (Theobald 2005) — a symmetric 4x4 eigenproblem — instead of the
     reference's 3x3 SVD: in float32 the eigh path is ~4 orders of magnitude
-    more accurate than SVD (2e-7 vs 5e-3 rotation error) and both batch and
-    compile cleanly on TPU.  The proper-rotation constraint (the reference's
+    more accurate than SVD (2e-7 vs 5e-3 rotation error) and batches as
+    one `eigh` over `[..., 4, 4]`.  The proper-rotation constraint (the reference's
     determinant sign fix, rmsd.rs:578-583) is inherent to the quaternion
     parameterization.
 
@@ -167,7 +170,7 @@ def rmsd_matrix(frames, boxes, w, *, chunk: int = 8):
     `calc_rmsd` between frame-i and frame-j systems; the matrix is
     exactly symmetric with a zero diagonal by that convention.  Rows are
     processed `chunk` at a time under `lax.map` so peak memory is
-    `[chunk, F, K, 3]` while the covariance builds stay batched MXU
+    `[chunk, F, K, 3]` while the covariance builds stay batched
     einsums.
     """
     frames = jnp.asarray(frames, jnp.float32)

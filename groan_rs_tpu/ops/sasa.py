@@ -1,7 +1,7 @@
 """Solvent-accessible surface area — Shrake-Rupley on device (surpass).
 
 The reference has no SASA analysis; this covers the `gmx sasa` workload
-the TPU way: a Fibonacci-lattice point sphere per atom, neighbour
+the batched way: a Fibonacci-lattice point sphere per atom, neighbour
 occlusion tested as one dense batched tensor op per frame.  The
 algorithm is exact-by-construction for the returned result: neighbour
 candidates are capped at `max_neighbors` per atom for the [K, N, M]

@@ -7,11 +7,11 @@ Bai-Breen centers/COM, group-center distances, mass-weighted Kabsch RMSD,
 min distance, contact counts) with
 
 - the batch (frame) axis sharded over `frames`   — data parallelism, the
-  TPU-native form of the reference's thread map-reduce (parallel.rs:208)
+  array form of the reference's thread map-reduce (parallel.rs:208)
 - the atom axis sharded over `atoms`             — the "sequence-parallel"
   analogue (SURVEY §2.3): per-atom partial sums (trig sums, covariances,
   weighted means) are computed locally and combined with `psum` over the
-  `atoms` axis riding ICI; only 3-vectors and 3x3 matrices cross chips.
+  `atoms` axis; only 3-vectors and 3x3 matrices cross devices.
   Pair observables (min distance / contacts) `all_gather` ONE side's
   coordinates over the atoms axis and reduce with `pmin`/`psum`.
 
@@ -88,7 +88,7 @@ def _masked_bai_breen_center(pos, box, w):
 
     wx = w[None, :, None]
     if box.ndim == 3:
-        _hi = jax.lax.Precision.HIGHEST
+        _hi = jax.lax.Precision.HIGHEST  # not TF32 (see ops/rmsd.py)
         hinv = jnp.linalg.inv(box)
         s = jnp.einsum("bni,bij->bnj", pos, hinv, precision=_hi)
         theta = (s - jnp.floor(s)) * _TWO_PI
@@ -104,10 +104,14 @@ def _masked_bai_breen_center(pos, box, w):
         ctr = jnp.einsum("bi,bij->bj", frac, box, precision=_hi)
         return ctr, den
 
+    # the estimate is the GEOMETRIC one over the selected atoms, as in
+    # `ops.center.center` (iterators.rs:1237-1266); only the final mean
+    # carries the weights
+    mx = (w > 0).astype(pos.dtype)[None, :, None]
     scale = _TWO_PI / box  # [b, 3]
     theta = wrap(pos, box[:, None, :]) * scale[:, None, :]
-    xi = jax.lax.psum(jnp.sum(wx * jnp.cos(theta), axis=1), "atoms")
-    zeta = jax.lax.psum(jnp.sum(wx * jnp.sin(theta), axis=1), "atoms")
+    xi = jax.lax.psum(jnp.sum(mx * jnp.cos(theta), axis=1), "atoms")
+    zeta = jax.lax.psum(jnp.sum(mx * jnp.sin(theta), axis=1), "atoms")
     est = (jnp.arctan2(-zeta, -xi) + jnp.pi) / scale  # [b, 3]
 
     unwrapped = est[:, None, :] + vector_to(est[:, None, :], pos, box[:, None, :])

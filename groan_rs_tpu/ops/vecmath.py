@@ -64,8 +64,8 @@ def rotate(v, rotation_matrix):
     column-vector convention `R @ x`; for row-vector arrays x @ R^T)."""
     v = jnp.asarray(v)
     r = jnp.asarray(rotation_matrix, v.dtype)
-    # HIGHEST: TPU MXU default (bf16 inputs) costs ~1e-2 absolute on
-    # rotations — f32 parity requires full-precision accumulation
+    # HIGHEST: the default f32 matmul precision on a GPU is TF32 (10-bit
+    # mantissa), ~1e-3 relative on rotations; f32 parity needs full f32
     import jax
 
     return jnp.einsum("...j,...ij->...i", v, r,

@@ -1,6 +1,6 @@
 """Frame-sharded parallel analysis engine.
 
-TPU-native re-design of the reference's only distributed mechanism —
+Batched re-design of the reference's only distributed mechanism —
 `System::traj_iter_map_reduce` (`src/system/parallel.rs:208`): there, each
 OS thread clones the System, opens its own reader, strides frames, and
 results are reduced after a join.  Here the same decomposition maps to the

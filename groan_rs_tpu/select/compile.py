@@ -1,6 +1,6 @@
 """GSL mask compiler: Select AST -> boolean mask over all atoms.
 
-TPU-native replacement of the reference's per-atom AST interpreter
+Vectorized replacement of the reference's per-atom AST interpreter
 (`Group::matches_select`, `src/structures/group.rs:186-290`): each AST node
 evaluates to one vectorized `bool[N]` mask over the SoA topology, string
 predicates are evaluated once per *unique* interned name and gathered via

@@ -2,11 +2,10 @@
 
 Host-facing wrappers around the jitted kernels in `ops/`: selections become
 gather indices once, then the math runs through `ops.interactive` — the same
-jnp kernels jit-compiled on the LOCAL CPU backend (pow2-padded shape cache),
-so each call costs ~0.1-1 ms like the reference's CPU methods instead of a
-device round trip (set ``GROAN_INTERACTIVE_DEVICE=default`` to dispatch to
-the accelerator instead).  The heavy trajectory path bypasses these and uses
-the batched ops directly (see `parallel/` and `models/`).
+jnp kernels jit-compiled on the local CPU backend (pow2-padded shape cache),
+like the reference's CPU methods (set ``GROAN_INTERACTIVE_DEVICE=default`` to
+dispatch to the accelerator instead).  The heavy trajectory path bypasses
+these and uses the batched ops directly (see `parallel/` and `models/`).
 """
 
 from __future__ import annotations
@@ -25,9 +24,8 @@ from ..ops import interactive
 # Per-call analysis methods run host-side (ops.interactive), but a per-frame
 # Python loop over them still forfeits batching: the batched pipeline fuses
 # the whole pass into one jitted device computation.  After this many calls
-# we point the user at it once.  When the host fast path is disabled (no CPU
-# backend, or GROAN_INTERACTIVE_DEVICE=default) every call additionally pays
-# a device round trip.  Tune/disable with GROAN_DISPATCH_WARN_AT (0 = off).
+# we point the user at it once.  Tune/disable with GROAN_DISPATCH_WARN_AT
+# (0 = off).
 _DISPATCH_WARN_AT = int(os.environ.get("GROAN_DISPATCH_WARN_AT", "256"))
 _dispatch_state = {"count": 0, "warned": False}
 
@@ -39,11 +37,10 @@ def _tick_dispatch():
             and st["count"] >= _DISPATCH_WARN_AT):
         st["warned"] = True
         warnings.warn(
-            f"{st['count']} per-call System analysis dispatches so far — "
-            "each pays a device round trip. For per-frame trajectory "
-            "analysis use models.TrajectoryAnalysis (one jitted batched "
-            "pass; ~1000x less dispatch latency), or ops.* batched "
-            "kernels directly.",
+            f"{st['count']} per-call System analysis dispatches so far. "
+            "For per-frame trajectory analysis use "
+            "models.TrajectoryAnalysis (one jitted batched pass), or "
+            "ops.* batched kernels directly.",
             PerformanceWarning, stacklevel=3)
 
 

@@ -1,6 +1,6 @@
 """System: the central façade.
 
-TPU-native re-design of the reference `System` (`src/system/mod.rs:38-73`).
+Batched re-design of the reference `System` (`src/system/mod.rs:38-73`).
 The reference's `Vec<Atom>` (AoS) becomes:
 
 - `topology`  — static SoA metadata (`core.topology.Topology`)

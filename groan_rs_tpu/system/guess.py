@@ -1,6 +1,6 @@
 """Element / property / bond guessing (reference: `src/system/guess.rs`).
 
-TPU-native re-design: each element's GSL query compiles to one vectorized
+Batched re-design: each element's GSL query compiles to one vectorized
 `bool[N]` mask (instead of the reference's per-atom, per-element AST walk,
 guess.rs:131-195), and bond guessing runs a vectorized cell-pair sweep over
 the CSR cell grid instead of a per-atom neighbor iterator (guess.rs:362+).

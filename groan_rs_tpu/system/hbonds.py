@@ -341,7 +341,7 @@ def _detect(positions, box, chain_acc: _ChainGroups, chain_don: _ChainGroups,
 # conditioning-aware error bound of the threshold (arccos error grows as
 # 1/sqrt(1-cos^2) near 0/180 deg), or an ambiguous NaN disambiguation —
 # is re-scored on host with the exact reference-f32 semantics, so the
-# detected bond set is exact at device speed on any backend (CPU, TPU).
+# detected bond set is exact at device speed on any backend (CPU, GPU).
 
 _ANGLE_GUARD = np.float32(2e-3)       # flat floor, degrees
 _COS_EPS = np.float32(1e-6)           # assumed worst-case cos-chain ulp error
@@ -743,7 +743,7 @@ def make_dense_counter(analysis: "HBondAnalysis", tile: int = 64,
     `fn(positions[B, N, 3] f32, boxes[B, 3]) -> int32 [B, n_pairs]`
     (or `(counts [B, n_pairs], guarded [B])` with `with_guard=True`).
 
-    The TPU-first formulation of SURVEY §2.2's hbonds row: NO cell grid,
+    The dense formulation of SURVEY §2.2's hbonds row: NO cell grid,
     NO host candidate generation, NO extra wire — every (donor, acceptor)
     pair is evaluated dense, tiled over the donor axis with `lax.scan` so
     the [ND, NA] intermediates never exceed `tile x NA x H` (the blockwise
@@ -831,7 +831,7 @@ def make_dense_counter(analysis: "HBondAnalysis", tile: int = 64,
                                     box[:, :, :, None, :])  # [B,T,H,NA,3]
                 hdx = hd[:, :, :, None, :]
                 # explicit left-fold mul-adds: the reference's exact f32
-                # arithmetic (no dot_general, no MXU default precision)
+                # arithmetic (no dot_general, no reduced-precision default)
                 dot = (hdx[..., 0] * ha[..., 0] + hdx[..., 1] * ha[..., 1]
                        + hdx[..., 2] * ha[..., 2])
                 len_hd = jnp.sqrt(hd[..., 0] ** 2 + hd[..., 1] ** 2

@@ -45,7 +45,7 @@ def test_resident_equals_streamed(tpr_sys, monkeypatch):
     # bit-identity needs IDENTICAL dispatch tiling on both sides: disable
     # the one-shot small-pass path so the streamed side runs the same
     # [4, K, 3] batches the resident side does (one-shot vs batched is a
-    # different XLA compilation — ulp differences on TPU; the cross-tiling
+    # different XLA compilation — ulp differences; the cross-tiling
     # tolerance contract is test_resident_batch_boundaries)
     monkeypatch.setenv("GROAN_ONESHOT_BYTES", "0")
     xtc = os.path.join(TF, "short_trajectory.xtc")

@@ -1,7 +1,6 @@
 """Interactive-API latency guard: per-call System analysis methods warn
-once after N dispatches, pointing at the batched pipeline (each call pays
-a device round trip the reference's CPU-local calls don't,
-analysis.rs:105)."""
+once after N dispatches, pointing at the batched pipeline (the reference's
+per-call methods are CPU-local, analysis.rs:105)."""
 
 import os
 import warnings

@@ -2,8 +2,8 @@
 
 Pins `models.pca` against exact single-mode constructions, a rigid-body
 zero property, a float64 host oracle (Kabsch fit + covariance + eigh),
-and the DeviceTrajectory layout paths.  The covariance build is the
-MXU-native [F,3K]^T @ [F,3K] matmul.
+and the DeviceTrajectory layout paths.  The covariance build is one
+[F,3K]^T @ [F,3K] matmul.
 """
 
 import os

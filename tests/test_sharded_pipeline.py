@@ -2,7 +2,7 @@
 
 The reference proves its parallel engine by asserting serial and
 multi-thread map-reduce produce identical results (`src/system/parallel.rs`
-tests).  The TPU-native analogue: the SAME TrajectoryAnalysis observable
+tests).  The batched analogue: the SAME TrajectoryAnalysis observable
 suite compiled (a) unsharded (`step_fn`), (b) on a 1x1 mesh, and (c) on a
 frames x atoms mesh must agree on every output (f32 tolerance — reductions
 reorder across shards, the same caveat the reference documents for
@@ -234,3 +234,34 @@ def test_sidecars_pack_one_put_per_batch(test_files, monkeypatch):
     assert len(out["com"]) == 11
     n_batches = 3  # 11 frames / batch_size 4
     assert len(calls) == 2 * n_batches, calls
+
+
+def test_sharded_com_uses_the_geometric_estimate():
+    """A mass-weighted group spread over most of the box: the Bai-Breen
+    estimate is the GEOMETRIC one on both paths (ops.center.center), so
+    the atoms each path unwraps, and with them the COM and the RMSD,
+    agree.  A mass-weighted estimate moves the unwrap planes and flips
+    the atoms near them."""
+    rng = np.random.default_rng(11)
+    n, batch = 512, 4
+    box = np.array([6.0, 6.0, 6.0], np.float32)
+    base = (box / 2 + rng.normal(size=(n, 3)) * 1.6).astype(np.float32) % box
+    positions = (base[None] + rng.normal(size=(batch, 1, 3)).astype(
+        np.float32) * 0.05) % box
+    boxes = np.broadcast_to(box, (batch, 3)).copy()
+    masses = np.where(np.arange(n) % 2 == 0, 1.0, 16.0).astype(np.float32)
+    topo = Topology.from_columns(
+        resnum=np.arange(1, n + 1), resname=np.array(["TST"] * n),
+        atomname=np.array(["C"] * n), atomnum=np.arange(1, n + 1),
+        mass=masses)
+    system = System("wide", topo, simbox=SimBox.from_lengths(6.0, 6.0, 6.0),
+                    positions=positions[0])
+    system.group_create_from_indices("A", np.arange(n))
+    pipe = (TrajectoryAnalysis(system).add_com("A", name="com")
+            .add_rmsd("A", reference=system, name="rmsd"))
+    solo = pipe.step_fn()(positions, boxes, np.ones(batch, bool))
+    out = _run_sharded(pipe, make_mesh(2, 2), positions, boxes)
+    np.testing.assert_allclose(out["com"], np.asarray(solo["com"]),
+                               atol=1e-4)
+    np.testing.assert_allclose(out["rmsd"], np.asarray(solo["rmsd"]),
+                               atol=1e-4)
